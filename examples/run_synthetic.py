@@ -8,8 +8,9 @@ this environment).
 Usage: python examples/run_synthetic.py [n_frames] [--free] [--verbose]
 
 --free runs the zero-read FreeRunner pipeline (pipeline/device_loop.py)
-instead of the synchronous System — on the TPU this is the ~1000 fps
-path; the trajectory/ATE report is identical in shape.
+instead of the synchronous System; the trajectory/ATE report is
+identical in shape.  The trajectory is written to synthetic_traj.txt in
+the current directory.
 """
 
 import os
@@ -56,7 +57,7 @@ def main(n_frames: int = 40):
         est_c = np.stack([-traj[k][:3, :3].T @ traj[k][:3, 3] for k in ids])
         gt_c = np.stack([-poses[k][0].T @ poses[k][1] for k in ids])
         rmse, _ = evaluation.ate_rmse(est_c, gt_c, with_scale=True)
-        trajectory.save_tum("/tmp/synthetic_traj.txt",
+        trajectory.save_tum("synthetic_traj.txt",
                             [(k / 30.0, traj[k]) for k in ids])
         print(f"free-running: {n_frames} frames in {dt:.3f}s "
               f"({n_frames/dt:.1f} fps), tracked {len(ids)}, "
@@ -83,7 +84,7 @@ def main(n_frames: int = 40):
     gt_c = np.stack([-poses[k][0].T @ poses[k][1] for k in ids])
     rmse, _ = evaluation.ate_rmse(est_c, gt_c, with_scale=True)
 
-    trajectory.save_tum("/tmp/synthetic_traj.txt",
+    trajectory.save_tum("synthetic_traj.txt",
                         [(k / 30.0, traj[k]) for k in ids])
     med = np.median(times[5:]) if len(times) > 5 else np.median(times)
     print(f"\ntracked {len(ids)}/{n_frames} frames, "
@@ -92,7 +93,7 @@ def main(n_frames: int = 40):
           f"{np.linalg.norm(gt_c[-1]-gt_c[0]):.2f} m trajectory")
     print(f"median frame time: {med*1e3:.1f} ms "
           f"(first frames include XLA compilation)")
-    print(f"trajectory written to /tmp/synthetic_traj.txt")
+    print("trajectory written to synthetic_traj.txt")
     return rmse, len(ids)
 
 

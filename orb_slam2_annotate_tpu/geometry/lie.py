@@ -14,7 +14,7 @@ Conventions
 * se3 tangent vectors are ``[rho(3), phi(3)]`` (translation first), so3
   tangent is ``phi`` with ``R = exp(hat(phi))``.
 * sim3 tangent is ``[rho(3), phi(3), sigma(1)]`` with scale ``s = exp(sigma)``.
-* float32 throughout (TPU native precision); small-angle branches use
+* float32 throughout; small-angle branches use
   Taylor expansions selected with jnp.where so gradients stay finite.
 """
 

@@ -1,10 +1,10 @@
-"""Closed-form small-matrix solves for TPU hot loops.
+"""Closed-form small-matrix solves for hot loops.
 
 jnp.linalg.solve / jax.scipy.linalg.solve lower to pivoted LU /
 blocked Cholesky — sequential scalar-heavy algorithms that dominate the
 latency of LM iterations when the system is only 3x3 or 6x6 (pose
 optimization solves a 6x6 40+ times per frame).  These helpers are pure
-closed-form arithmetic: a handful of fused VPU ops, fully batchable,
+closed-form arithmetic: a handful of fused elementwise ops, fully batchable,
 with no data-dependent control flow.
 
 Used by solvers/pose_opt.py (6x6 damped LM step) and geometry/lie.py

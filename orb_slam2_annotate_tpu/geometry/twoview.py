@@ -24,10 +24,9 @@ def triangulate_dlt(P1: jnp.ndarray, P2: jnp.ndarray, x1: jnp.ndarray,
     Same construction as reference Initializer.cc:829-851 but solved
     INHOMOGENEOUSLY (fix X_w = 1): argmin |A[:, :3] X + A[:, 3]| via the
     closed-form 3x3 normal equations.  The homogeneous eigh(A^T A)
-    route costs 3.7 us/point batched on TPU (lowered to an iterative
-    eigensolver; 76 ms for one keyframe's 20x1024 pair grid — measured
-    r5, the whole of create_new_mappoints' budget) vs ~0.1 us closed
-    form.  The w=1 chart only degrades for points at infinity, which the
+    route lowers to an iterative eigensolver per point, far costlier
+    for one keyframe's 20x1024 pair grid than this closed form.  The
+    w=1 chart only degrades for points at infinity, which the
     callers' parallax/depth gates reject anyway.
     """
     from .smallsolve import solve3

@@ -11,13 +11,13 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import yaml
-
 from ..geometry.camera import CameraModel
 from ..pipeline.system import SlamConfig
 
 
 def load_opencv_yaml(path: str) -> dict:
+    import yaml  # only settings files need PyYAML
+
     with open(path) as f:
         text = f.read()
     # strip cv::FileStorage-isms PyYAML rejects: the %YAML:1.0 directive,

@@ -1,6 +1,6 @@
 """Dataset readers for TUM RGB-D, KITTI odometry and EuRoC MAV sequences.
 
-The TPU counterparts of the reference's example drivers
+The counterparts of the reference's example drivers
 (Examples/Monocular/mono_tum.cc:36-48 LoadImages, mono_kitti.cc,
 mono_euroc.cc, stereo_*.cc, rgbd_tum.cc): each reader yields
 (timestamp, image paths...) so the System can be driven frame by frame.

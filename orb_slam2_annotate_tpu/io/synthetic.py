@@ -113,6 +113,44 @@ def orbit_trajectory(n_frames: int, radius: float = 0.0, step: float = 0.05,
     return poses
 
 
+def warp_perspective(srcs, H: np.ndarray, h: int, w: int,
+                     border: float = -1.0):
+    """Bilinear perspective warp of same-shaped images into an [h, w]
+    view: out(y, x) = src at H^-1 [x, y, 1], with `border` for samples
+    outside src (cv2.warpPerspective with INTER_LINEAR and
+    BORDER_CONSTANT).  The inverse map and the weights are computed once
+    and shared by every image in `srcs`.  Returns a list of [h, w] f32.
+    """
+    Hi = np.linalg.inv(np.asarray(H, np.float64))
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    zw = Hi[2, 0] * xs + Hi[2, 1] * ys + Hi[2, 2]
+    ok = zw != 0  # the horizon row maps to infinity: border
+    inv = 1.0 / np.where(ok, zw, 1.0)
+    far = 1e6
+    sx = np.where(ok, np.clip((Hi[0, 0] * xs + Hi[0, 1] * ys + Hi[0, 2])
+                              * inv, -far, far), -far)
+    sy = np.where(ok, np.clip((Hi[1, 0] * xs + Hi[1, 1] * ys + Hi[1, 2])
+                              * inv, -far, far), -far)
+    x0, y0 = np.floor(sx), np.floor(sy)
+    ax = (sx - x0).astype(np.float32)
+    ay = (sy - y0).astype(np.float32)
+    # indices into src padded by one border pixel: every neighbour
+    # outside src lands on the border ring
+    th, tw = srcs[0].shape
+    xa = np.clip(x0 + 1, 0, tw + 1).astype(np.intp)
+    xb = np.clip(x0 + 2, 0, tw + 1).astype(np.intp)
+    ya = np.clip(y0 + 1, 0, th + 1).astype(np.intp) * (tw + 2)
+    yb = np.clip(y0 + 2, 0, th + 1).astype(np.intp) * (tw + 2)
+    taps = ((ya + xa, (1 - ax) * (1 - ay)), (ya + xb, ax * (1 - ay)),
+            (yb + xa, (1 - ax) * ay), (yb + xb, ax * ay))
+    outs = []
+    for src in srcs:
+        p = np.pad(np.asarray(src, np.float32), 1,
+                   constant_values=border).ravel()
+        outs.append(sum(p[i] * wgt for i, wgt in taps))
+    return outs
+
+
 class PlaneScene:
     """Piecewise-planar textured scene rendered by homography warping.
 
@@ -151,8 +189,6 @@ class PlaneScene:
 
     def render(self, cam: CameraModel, R: np.ndarray, t: np.ndarray,
                h: int = 480, w: int = 640):
-        import cv2
-
         K = np.array([[float(cam.fx), 0, float(cam.cx)],
                       [0, float(cam.fy), float(cam.cy)],
                       [0, 0, 1.0]], np.float64)
@@ -183,14 +219,7 @@ class PlaneScene:
                 lambda yy, xx: (a * (xx + 0.5) / tw + b * (yy + 0.5) / th + c
                                 ).astype(np.float32), (th, tw)
             )
-            warped = cv2.warpPerspective(
-                T, H, (w, h), flags=cv2.INTER_LINEAR,
-                borderMode=cv2.BORDER_CONSTANT, borderValue=-1.0,
-            )
-            wz = cv2.warpPerspective(
-                ramp, H, (w, h), flags=cv2.INTER_LINEAR,
-                borderMode=cv2.BORDER_CONSTANT, borderValue=-1.0,
-            )
+            warped, wz = warp_perspective((T, ramp), H, h, w, border=-1.0)
             m = (warped >= 0) & (wz > 0.1)
             img[m] = warped[m]
             depth[m] = wz[m]
@@ -391,15 +420,17 @@ def circle_trajectory(n_frames: int, radius: float = 1.0,
 
 def render_frames_cached(scene, cam: CameraModel, poses, h: int, w: int,
                          scene_key: str, with_depth: bool = False,
-                         cache_dir: str | None = None, n_workers: int = 2,
+                         cache_dir: str | None = None,
+                         n_workers: int | None = None,
                          verbose: bool = False):
     """Render a pose sequence, memoized on disk.
 
-    Rendering is host-side OpenCV warping (~0.15 s/frame at VGA) and the
-    long benchmark sequences re-render the identical deterministic scene
-    every run (r4: 180 s of a ~10-minute budget).  Frames are cached as a
-    single uint8 .npy (plus float16 depth) keyed by the scene/camera/
-    trajectory hash; a second run on the same host loads in seconds.
+    Rendering is host-side NumPy warping (tens of ms per plane at VGA),
+    and the long benchmark sequences re-render the identical
+    deterministic scene every run.  Frames are cached as a single uint8
+    .npy (plus float16 depth) keyed by the scene/camera/trajectory hash,
+    under `cache_dir` (default: `.render_cache/` at the root of the
+    checkout); a second run in the same checkout loads in seconds.
 
     Returns (frames [F,h,w] uint8, depth [F,h,w] float32 | None).
     """
@@ -409,8 +440,9 @@ def render_frames_cached(scene, cam: CameraModel, poses, h: int, w: int,
     import time
     from concurrent.futures import ThreadPoolExecutor
 
-    cache_dir = cache_dir or os.environ.get(
-        "ORBTPU_RENDER_CACHE", "/tmp/orbtpu_render_cache")
+    from .. import _REPO_ROOT
+
+    cache_dir = cache_dir or os.path.join(_REPO_ROOT, ".render_cache")
     pose_bytes = np.ascontiguousarray(
         np.stack([np.hstack([R.reshape(-1), t.reshape(-1)])
                   for R, t in poses]).astype(np.float32)).tobytes()
@@ -425,7 +457,7 @@ def render_frames_cached(scene, cam: CameraModel, poses, h: int, w: int,
             if with_depth else None
         if img.shape == (len(poses), h, w):
             return img, dep
-    except Exception:
+    except (OSError, ValueError):  # absent or unreadable: render
         pass
 
     t0 = time.perf_counter()
@@ -436,7 +468,8 @@ def render_frames_cached(scene, cam: CameraModel, poses, h: int, w: int,
         return (np.clip(im, 0, 255).astype(np.uint8),
                 dp.astype(np.float16) if with_depth else None)
 
-    # cv2 releases the GIL inside warpPerspective; threads ~halve latency
+    # NumPy releases the GIL inside its large array loops
+    n_workers = n_workers or min(16, os.cpu_count() or 1)
     with ThreadPoolExecutor(max_workers=n_workers) as ex:
         rendered = list(ex.map(one, poses))
     img = np.stack([r[0] for r in rendered])
@@ -449,6 +482,6 @@ def render_frames_cached(scene, cam: CameraModel, poses, h: int, w: int,
         np.save(base + "_img.npy", img)
         if with_depth:
             np.save(base + "_dep.npy", dep16)
-    except Exception:  # cache is best-effort
+    except OSError:  # the cache is best-effort
         pass
     return img, dep16.astype(np.float32) if with_depth else None

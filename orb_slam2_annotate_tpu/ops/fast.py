@@ -3,7 +3,7 @@
 Replaces reference ORBextractor::ComputeKeyPointsOctTree's per-cell
 cv::FAST calls (ORBextractor.cc:815-896).  Instead of looping over 30x30
 cells on the host, the whole level is evaluated as one fused array program
-(16 shifted comparisons + circular-arc reduction) — VPU-shaped work — and
+(16 shifted comparisons + circular-arc reduction) — elementwise work — and
 the reference's "threshold 20, retry 7" per-cell logic becomes a single
 pass at the low threshold with a per-pixel flag for "also passes the high
 threshold", resolved during per-cell selection (see select.py).

@@ -1,4 +1,4 @@
-"""Data-association suite: the TPU counterparts of ORBmatcher's entry points.
+"""Data-association suite: the counterparts of ORBmatcher's entry points.
 
 Reference: ORBmatcher.cc — SearchByProjection x4 (:51,:335,:1484,:1641),
 SearchByBoW x2 (:185,:610), SearchForInitialization (:469),
@@ -6,8 +6,9 @@ SearchForTriangulation (:754), SearchBySim3 (:1251), Fuse x2 (:940,:1112).
 
 Design: the reference restricts brute-force comparisons with grid cells
 and BoW feature-vector nodes because it is CPU-bound on Hamming distance.
-On TPU the full [N1, N2] popcount matrix for N ~ 1024 is microseconds of
-VPU work, so every Search* becomes: (1) build a boolean candidate mask
+On an accelerator the full [N1, N2] popcount matrix for N ~ 1024 is one
+small fused elementwise pass, so every Search* becomes: (1) build a
+boolean candidate mask
 (spatial window / epipolar gate / scale consistency), (2) one dense
 Hamming matrix, (3) masked best/second-best + ratio test, (4) rotation
 histogram consistency, (5) optional mutual (cross) check.  Constants
@@ -108,9 +109,8 @@ def window_mask(xy1_proj: jnp.ndarray, xy2: jnp.ndarray, radius: jnp.ndarray):
     Replaces Frame::GetFeaturesInArea grid queries (Frame.cc:358) with a
     dense distance test.
     """
-    # componentwise: an [N1,N2,2] intermediate would pad the trailing dim
-    # 2 -> 128 in the tile lane (64x traffic); two [N1,N2] planes tile
-    # perfectly
+    # componentwise: two [N1,N2] planes instead of an [N1,N2,2]
+    # intermediate with a size-2 minor axis
     dx = xy1_proj[:, None, 0] - xy2[None, :, 0]
     dy = xy1_proj[:, None, 1] - xy2[None, :, 1]
     d2 = dx * dx + dy * dy

@@ -3,9 +3,9 @@
 Replaces reference ORBextractor::ComputePyramid (ORBextractor.cc:1203) and
 the pre-descriptor GaussianBlur(7x7, sigma=2) call (ORBextractor.cc:1172).
 
-TPU notes: levels have distinct static shapes; under jit each level is its
-own fused resize+blur.  Blur is a separable 1D conv pair expressed with
-lax.conv_general_dilated so XLA maps it onto the conv/matmul units.
+Levels have distinct static shapes; under jit each level is its own
+fused resize+blur.  Blur is a separable 1-D pair of shift-scale-add
+passes (gaussian_blur).
 """
 
 from __future__ import annotations
@@ -55,9 +55,9 @@ def gaussian_blur(image: jnp.ndarray, ksize: int = 7, sigma: float = 2.0):
     """Separable Gaussian blur with reflected borders (BORDER_REFLECT_101).
 
     Expressed as two shift-scale-add passes with static weights rather
-    than lax.conv: a 1-channel conv maps terribly onto the TPU conv unit
-    (measured 8 ms for 640x480), while 2x7 fused vector adds run on the
-    VPU in ~0.1 ms.
+    than lax.conv: a 1-channel conv is a poor fit for convolution
+    kernels built for many channels, while 2x7 fused elementwise adds
+    are one memory-bound pass.
     """
     k = _gaussian_kernel_1d(ksize, sigma)
     half = ksize // 2

@@ -1,7 +1,7 @@
 """Spatially-uniform keypoint selection (octree replacement).
 
 Replaces reference ORBextractor::DistributeOctTree (ORBextractor.cc:566),
-a divergent host-side recursion, with a TPU-shaped two-stage selection:
+a divergent host-side recursion, with a data-parallel two-stage selection:
 
 1. per-cell top-1: the NMS'd score map is reshaped into a grid of cells
    (cell count ~= 2x the level budget) and each cell keeps its best corner,

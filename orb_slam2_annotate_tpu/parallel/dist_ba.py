@@ -6,7 +6,7 @@ BASELINE.json north star: shard the *map-point* axis (and with it each
 point's observations) across devices; every device builds the normal
 equations for its point block; the Schur-reduced camera system
 S = Hcc - B Hpp^-1 B^T and reduced gradient are summed over the mesh with
-one psum each (ICI all-reduce of [C,6,6]+[C,C,6,6]-shaped blocks); every
+one psum each (an all-reduce of [C,6,6]+[C,C,6,6]-shaped blocks); every
 device solves the identical small camera system and updates its own
 landmark block locally — no host round-trips inside the LM loop.
 
@@ -14,9 +14,8 @@ Layout contract (see shard_ba_problem): edge arrays are grouped so that
 the edges of point p live on p's shard, with pt_idx given in shard-local
 coordinates.  Cameras are replicated (they are tiny: C <= a few hundred).
 
-This unit scales from 1 chip to a pod slice unchanged: `mesh` may span
-hosts; XLA lowers the psums to ICI collectives within a slice and DCN
-across slices.
+This unit scales from 1 device to several hosts unchanged: `mesh` may
+span hosts; XLA lowers the psums to collectives (NCCL on GPUs).
 """
 
 from __future__ import annotations
@@ -165,7 +164,7 @@ def make_distributed_ba(mesh: Mesh, axis: str = "mp", iters: int = 10,
                 camm, R, t, pts, ptv, fixed, cidx, pidx_l, uv, ur, is2, ev,
                 robust,
             )
-            # reduce the camera system over the mesh (ICI psum)
+            # reduce the camera system over the mesh (psum)
             Hcc = jax.lax.psum(Hcc, axis)
             gc = jax.lax.psum(gc, axis)
             cost = jax.lax.psum(cost, axis)

@@ -3,7 +3,7 @@
 The reference has no distributed layer (SURVEY §2.4); here a mesh is the
 unit of scaling: distributed BA shards map points over it (dist_ba).
 This module wraps jax.distributed initialization for multi-host SPMD
-(DCN-coordinated, ICI within each slice) and mesh construction.
+and mesh construction.
 """
 
 from __future__ import annotations
@@ -54,7 +54,8 @@ def shard_map_state(m, mesh: Mesh, axis: str = "mp"):
     pipeline programs (tracking, the fused keyframe chain, loop closing)
     are sharding-agnostic jnp — XLA partitions the [K,P] observation
     matmuls, frustum tests and gathers and inserts the collectives
-    (psum/all-gather on the [K]-sized reductions) over ICI.
+    (psum/all-gather on the [K]-sized reductions) over the device
+    interconnect.
     """
     from jax.sharding import NamedSharding, PartitionSpec
 

@@ -1,4 +1,4 @@
-"""Per-frame measurement record: the TPU counterpart of Frame.cc.
+"""Per-frame measurement record: the counterpart of Frame.cc.
 
 A Frame bundles the extracted features with undistorted coordinates and
 (for stereo/RGB-D) per-feature depth / virtual right-image coordinates.
@@ -13,7 +13,7 @@ Construction is one jitted program per sensor type:
   (ComputeStereoMatches, Frame.cc:512-686)
 
 The reference's 64x48 feature grid (AssignFeaturesToGrid) is not needed:
-area queries are dense masked distance tests on TPU (see ops/matching.py).
+area queries are dense masked distance tests (see ops/matching.py).
 """
 
 from __future__ import annotations

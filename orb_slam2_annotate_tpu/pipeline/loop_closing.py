@@ -81,8 +81,8 @@ def detect_loop_device(vocab, db_bows, m: ms.MapState, slot,
     K = m.K
     bow = voc.bow_vector(vocab, m.kf_desc[slot], m.kf_feat_valid[slot])
     # only W[slot] and the <=8 candidate rows are needed — this runs on
-    # EVERY keyframe inside the free-path chain, and the full-W build
-    # measured ~20 ms at the bench tier (O(K*P) at grown tiers, r5)
+    # EVERY keyframe inside the free-path chain, and the full-W build is
+    # O(K*P)
     covis_row = ms.covis_row(m, slot)
     covis_mask = (covis_row > 0).at[slot].set(True)
 
@@ -743,9 +743,8 @@ class LoopCloserConfig:
     min_seed_inliers: int = 6     # RANSAC inliers to SEED the guided pass
                                   # (3 determine a Sim3; verification is
                                   # the optimize + projection gates below)
-    seed_hyp: int = 1024          # Sim3 RANSAC hypotheses (vmapped — a
-                                  # 1024-wide batch is as cheap as 128 on
-                                  # the TPU, and entry matches are noisy)
+    seed_hyp: int = 1024          # Sim3 RANSAC hypotheses (vmapped, one
+                                  # batch; entry matches are noisy)
     seed_th_chi2: float = 100.0   # seed inlier gate (~10 px): accumulated
                                   # drift leaves true loop pairs far from
                                   # the 3 px the reference uses on its
@@ -786,15 +785,20 @@ class LoopCloserConfig:
                                   # startup / the last closure (LoopClosing.cc:110)
     run_global_ba: bool = True    # full BA after the essential graph
     global_ba_iters: int = 10     # (RunGlobalBundleAdjustment, :756)
-    use_dist_gba: bool = True     # shard global BA over the mesh when
-                                  # more than one device is present
+    use_dist_gba: bool = False    # shard global BA over every visible
+                                  # device even without a caller's mesh
 
 
 class LoopCloser:
     def __init__(self, cam: CameraModel, max_kf: int,
-                 config: LoopCloserConfig | None = None, seed: int = 42):
+                 config: LoopCloserConfig | None = None, seed: int = 42,
+                 mesh=None):
         self.cam = cam
         self.cfg = config or LoopCloserConfig()
+        # global BA shards over this mesh (the caller's shard_points
+        # mesh), or over all devices with cfg.use_dist_gba; else it runs
+        # on one device however many are visible
+        self.mesh = mesh
         self.vocab = self._default_vocabulary(seed)
         self.db = voc.KeyFrameDatabase.create(max_kf, self.cfg.n_words)
         # host-side consistency bookkeeping: candidate slot -> streak length
@@ -1247,18 +1251,21 @@ class LoopCloser:
             uv=m.kf_xy.reshape(-1, 2), ur=m.kf_ur.reshape(-1),
             inv_sigma2=inv_s2, edge_valid=e_valid.reshape(-1),
         )
-        n_dev = len(jax.devices())
-        if self.cfg.use_dist_gba and n_dev > 1:
-            # sharded-map global BA over the device mesh (SURVEY §2.3
-            # final row: per-shard normal equations, psum-reduced camera
-            # system over ICI).  The host-side shard re-layout syncs on
-            # the map arrays — acceptable for the rare closure event.
-            from ..parallel import dist_ba
+        mesh = self.mesh
+        if mesh is None and self.cfg.use_dist_gba:
             from ..parallel.mesh import map_mesh
-            from jax.sharding import NamedSharding, PartitionSpec as Pspec
 
             mesh = map_mesh()
-            sprob, perm = dist_ba.shard_ba_problem(prob, n_dev,
+        if mesh is not None:
+            # sharded-map global BA over the device mesh (SURVEY §2.3
+            # final row: per-shard normal equations, psum-reduced camera
+            # system over the device interconnect).  The host-side shard
+            # re-layout syncs on the map arrays — acceptable for the rare
+            # closure event.
+            from ..parallel import dist_ba
+            from jax.sharding import NamedSharding, PartitionSpec as Pspec
+
+            sprob, perm = dist_ba.shard_ba_problem(prob, mesh.devices.size,
                                                    return_perm=True)
             spec_pt = NamedSharding(mesh, Pspec("mp"))
             spec_rep = NamedSharding(mesh, Pspec())

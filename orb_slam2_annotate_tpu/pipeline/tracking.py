@@ -97,8 +97,9 @@ def track_reference_keyframe(cam: CameraModel, m: MapState, frame: Frame,
     map-point features, then pose optimization from the last pose.
 
     The reference restricts comparisons to shared BoW nodes purely for CPU
-    speed (SearchByBoW, ORBmatcher.cc:185); dense [N,N] Hamming is cheap
-    on TPU so we keep only the ratio/rotation tests.
+    speed (SearchByBoW, ORBmatcher.cc:185); dense [N,N] Hamming is one
+    fused pass on an accelerator, so we keep only the ratio/rotation
+    tests.
     """
     kf_desc = m.kf_desc[kf_id]
     kf_obs = m.kf_obs[kf_id]
@@ -151,8 +152,8 @@ def track_local_map(cam: CameraModel, m: MapState, frame: Frame, R, t, obs,
     # --- local keyframes by shared-point votes.  votes[k] =
     # |obs_k ∩ cur_pts| as a gather of the current-point mask at every
     # observation — the [K,P] observation-matrix build this replaces is
-    # a K*N-update scatter (~20 ms/call at the r5 bench tier, O(K*P) at
-    # grown tiers) and ran EVERY frame here
+    # a K*N-update scatter (O(K*P) at grown tiers) and ran EVERY frame
+    # here
     cur_pts = jnp.zeros((P,), bool).at[jnp.clip(obs, 0)].max(obs >= 0)
     all_ok = (m.kf_obs >= 0) & m.kf_feat_valid & m.kf_valid[:, None]
     votes = jnp.sum(cur_pts[jnp.clip(m.kf_obs, 0)] & all_ok,
@@ -311,8 +312,7 @@ class TrackStep(NamedTuple):
 
     `stats` packs the small integers ([n_pre, n_local, n_local_kf]) and
     `poses` the small floats (R, t, vel, Tcr) so the host prefetches two
-    tiny arrays instead of nine — critical when the device link has
-    tens-of-ms round-trip latency (remote TPU)."""
+    tiny arrays instead of nine: each read is a device sync."""
     R: jnp.ndarray
     t: jnp.ndarray
     obs: jnp.ndarray

@@ -11,7 +11,7 @@ materialized: the Schur-complement product
 is evaluated edge-wise (two segment-sums through the landmark blocks) in
 a conjugate-gradient loop with a block-Jacobi (camera-block)
 preconditioner.  This is the classic "multicore BA" formulation
-(Agarwal et al.) mapped onto VPU segment reductions — and the unit that
+(Agarwal et al.) mapped onto segment reductions — and the unit that
 shards over a device mesh: every term is a sum over edges, so sharding
 the edge/point axes and psum-ing the [C,...] reductions distributes it
 (see parallel/dist_ba.py for the mesh wrapper).

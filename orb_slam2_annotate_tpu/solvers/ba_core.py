@@ -1,6 +1,6 @@
 """Bundle adjustment engine: batched robust LM with Schur marginalization.
 
-The TPU-native replacement for g2o's BlockSolver_6_3 +
+The array-program replacement for g2o's BlockSolver_6_3 +
 OptimizationAlgorithmLevenberg stack used by Optimizer::BundleAdjustment /
 LocalBundleAdjustment (Optimizer.cc:54-253, 483-813).  Where g2o walks a
 sparse graph of vertex/edge objects, everything here is a padded edge list:
@@ -9,10 +9,10 @@ sparse graph of vertex/edge objects, everything here is a padded edge list:
 
 and one LM iteration is a handful of batched einsums + segment reductions:
 
-  residual/Jacobian   [E,3,{6,3}]      (VPU)
+  residual/Jacobian   [E,3,{6,3}]      (elementwise)
   Hpp = sum per point [P,3,3] -> batched 3x3 inverse
   B   = sum per (point,cam) [P,C,6,3]  (scatter-add)
-  S   = Hcc - B Hpp^-1 B^T             (einsum -> MXU)
+  S   = Hcc - B Hpp^-1 B^T             (einsum -> matmul)
   dense Cholesky on the [6C, 6C] reduced camera system
   back-substitution for landmarks      (batched 3x3)
 
@@ -264,19 +264,16 @@ def bundle_adjust(cam: CameraModel, prob: BAProblem, iters: int = 10,
 # feature of every window camera is at most one edge).  A map point is
 # observed AT MOST ONCE per keyframe, so the (point, camera) -> feature
 # inverse index is well-defined and CONSTANT across LM iterations.  The
-# scatter-heavy flat-edge path (build_normal_eqs) spends most of its TPU
-# time in .at[].add; here every per-iteration quantity is a gather +
-# einsum (MXU/VPU friendly), with the single scatter (building the
-# inverse index) done once per solve.
+# scatter-heavy flat-edge path (build_normal_eqs) spends its time in
+# .at[].add; here every per-iteration quantity is a gather + einsum,
+# with the single scatter (building the inverse index) done once per
+# solve.
 #
-# LAYOUT RULE (the round-3 10x): TPU tiles the last two axes of every
-# array to (8, 128).  Any big tensor whose trailing axes are Jacobian
-# dims (3 or 6) is padded 20-50x in physical memory — an [C,N,3,6] Jc
-# costs 134 MB of HBM traffic instead of 2.3 MB, and one LM
-# linearization measured 6 ms instead of <1 ms.  All per-edge arrays
-# below therefore carry the BIG axis (N features / P points) LAST and
-# the small Jacobian axes first: r [3,C,N], Jc [3,6,C,N], Hpp [3,3,P],
-# B [6,3,C,P].
+# LAYOUT RULE: every per-edge array carries the BIG axis (N features /
+# P points) LAST and the small Jacobian axes first: r [3,C,N],
+# Jc [3,6,C,N], Hpp [3,3,P], B [6,3,C,P].  The rule was set for a
+# machine whose tiled memory pads small minor axes many-fold; whether it
+# pays on the H100 is not measured (ROADMAP Design 3).
 
 
 class GridBA(NamedTuple):
@@ -335,7 +332,7 @@ def _grid_cost(cam: CameraModel, R, t, X, g: GridBA, chi2_out: bool = False):
     """Robust (huberized) cost only — no Jacobians, no gathers.
 
     Plane layout: xc is [C,3,N] so every intermediate is a dense [C,N]
-    tile plane (an [C,N,3] xc pads 3 -> 128 in the tile lane)."""
+    plane (LAYOUT RULE above)."""
     Xg = X[jnp.clip(g.pt_loc, 0)]
     xc = jnp.einsum("cij,cnj->cin", R, Xg) + t[:, :, None]
     z = xc[:, 2]
@@ -363,7 +360,7 @@ def _grid_cost(cam: CameraModel, R, t, X, g: GridBA, chi2_out: bool = False):
 
 def _inv3_planes(A: jnp.ndarray) -> jnp.ndarray:
     """Closed-form inverse of [3, 3, ...] matrices in plane layout (the
-    matrix dims LEAD so the big batch axis stays in the tile lanes)."""
+    matrix dims LEAD so the big batch axis stays minor)."""
     a, b, c = A[0, 0], A[0, 1], A[0, 2]
     d, e, f = A[1, 0], A[1, 1], A[1, 2]
     g, h, i = A[2, 0], A[2, 1], A[2, 2]
@@ -476,8 +473,8 @@ def bundle_adjust_grid(cam: CameraModel, g: GridBA, iters: int = 10,
     """Robust LM with dense Schur solve over a [C, N] observation grid.
 
     Same semantics as bundle_adjust (Optimizer::LocalBundleAdjustment)
-    but with scatter-free per-iteration assembly in the tile-aware plane
-    layout (see LAYOUT RULE above).  Returns
+    but with scatter-free per-iteration assembly in the plane layout
+    (see LAYOUT RULE above).  Returns
     (R [C,3,3], t [C,3], points [P,3], edge_inlier [C,N], cost).
     """
     C, N = g.pt_loc.shape
@@ -494,7 +491,7 @@ def bundle_adjust_grid(cam: CameraModel, g: GridBA, iters: int = 10,
         jnp.clip(g.pt_loc, 0).reshape(-1), cam_ids.reshape(-1)
     ].min(jnp.where(base_valid, n_ids, N).reshape(-1))
     # linear index into the flattened [..., C*(N+1)] plane arrays,
-    # transposed [C,P] so the gather output keeps P in the tile lane
+    # transposed [C,P] so the gather output keeps P minor
     selT = (inv + jnp.arange(C)[None, :] * (N + 1)).T    # [C,P]
 
     def take(a):
@@ -520,8 +517,8 @@ def bundle_adjust_grid(cam: CameraModel, g: GridBA, iters: int = 10,
         # sqrt-weight trick: fold sqrt(w) into J and r once so every
         # normal-equation product uses the SAME tensors — one fewer
         # [3,*,C,N]-sized gather per iteration than the weighted/
-        # unweighted-pair formulation (the gathers dominate the
-        # iteration cost on TPU, measured r5)
+        # unweighted-pair formulation (gathers are the bulk of an
+        # iteration's memory traffic)
         sw = jnp.sqrt(w)[None, None]                     # [1,1,C,N]
         Jc = jnp.where(g.cam_fixed[None, None, :, None], 0.0, Jc)
         Jcw = Jc * sw

@@ -126,7 +126,7 @@ def initialize_two_view(key, x1, x2, match_mask, n_ransac: int = 200,
     f_success = clear & enough & parallax_ok
 
     # --- reconstruct from H (Faugeras): the reference decomposes into 8
-    # motions; a TPU-simpler route with equal coverage: H inliers are a
+    # motions; a batch-simpler route with equal coverage: H inliers are a
     # plane — recover E from the same correspondences via the fundamental
     # fit restricted to H-inliers is degenerate, so use homography
     # decomposition through SVD (Faugeras'88, as ReconstructH:653).

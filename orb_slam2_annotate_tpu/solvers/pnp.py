@@ -1,7 +1,7 @@
 """Batched PnP RANSAC for relocalization.
 
 Replaces PnPsolver.cc (vendored EPnP + P4P RANSAC, Lepetit et al.).
-TPU-first redesign: instead of EPnP's control-point/beta machinery run
+Batch-first redesign: instead of EPnP's control-point/beta machinery run
 sequentially per hypothesis, ALL RANSAC hypotheses are solved at once
 with a vmapped 6-point DLT (linear PnP): each hypothesis builds the
 2n x 12 projection system, takes its SVD null vector as [R|t] up to

@@ -6,8 +6,8 @@ strong-covisibility pairs (w >= 100), and loop closures; residual of edge
 (i, j) with measurement S_ji is  r = log_sim3(S_ji * S_i * S_j^-1) in
 R^7.  Gauss-Newton with analytic-free Jacobians: jax.jacfwd on the 7-dim
 tangent retraction per edge endpoint, vmapped over the padded edge list,
-scatter-assembled into a dense [7K, 7K] system (K <= a few hundred makes
-the dense Cholesky trivial on the MXU).
+scatter-assembled into a dense [7K, 7K] system (K <= a few hundred keeps
+the dense Cholesky small).
 
 After convergence, keyframe poses are recovered as SE3 = [R, t/s]
 (Optimizer.cc:1073-1081) and map points are transformed by their

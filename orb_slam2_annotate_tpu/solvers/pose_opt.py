@@ -1,4 +1,4 @@
-"""Motion-only pose optimization (the TPU replacement of g2o PoseOptimization).
+"""Motion-only pose optimization (the replacement of g2o PoseOptimization).
 
 Reference: Optimizer::PoseOptimization (Optimizer.cc:256-476): one SE3
 vertex, N unary mono/stereo reprojection edges with information
@@ -6,7 +6,7 @@ I * invSigma2(octave), Huber delta sqrt(5.991) mono / sqrt(7.815) stereo,
 4 rounds of (10 LM iterations + chi2 inlier reclassification), robust
 kernel dropped after round 2.
 
-TPU design: the whole thing is one jitted program.  Edges are a padded
+Design: the whole thing is one jitted program.  Edges are a padded
 array with a validity mask; each LM iteration computes all residuals and
 analytic Jacobians batched [N, 2, 6], reduces H = J^T W J (6x6) and
 g = J^T W r with masked sums, and solves the damped 6x6 system.  The
@@ -49,10 +49,9 @@ class PoseObs(NamedTuple):
 def _residual_jac(cam: CameraModel, R, t, obs: PoseObs):
     """Batched residuals and Jacobians wrt the left-multiplied se3 update.
 
-    TPU tile-aware plane layout: returns (r [3,N], J [3,6,N], is_stereo
-    [N], depth_ok [N]) — the big observation axis is LAST so every array
-    tiles densely (an [N,3,6] layout pads 6 -> 128 in the tile lane and
-    costs ~20x the memory traffic).  Mono rows have r[2]=0, J[2]=0 so
+    Plane layout: returns (r [3,N], J [3,6,N], is_stereo [N],
+    depth_ok [N]) — the big observation axis is LAST (ba_core's LAYOUT
+    RULE, unmeasured on the H100).  Mono rows have r[2]=0, J[2]=0 so
     they contribute 2 dof.  depth_ok gates rows whose point sits
     at/behind the camera: their clamped-z Jacobians are enormous and
     would drown the Hessian (the reference never feeds such points:
@@ -137,14 +136,14 @@ def optimize_pose(cam: CameraModel, R0, t0, obs: PoseObs,
     """The reference's 4-round robust LM schedule with chi2
     reclassification between rounds (Optimizer.cc:391-464).  Jit-safe.
 
-    TPU shape (round-2 rework): each LM iteration does ONE linearization
+    Each LM iteration does ONE linearization
     and then tries a 3-value damping ladder with cost-only evaluations
     (vmapped, closed-form 6x6 block-Schur solves — no LU).  g2o retries
     the solve on rejection without re-linearizing too
     (OptimizationAlgorithmLevenberg); the ladder makes those retries
     data-parallel instead of sequential, so 4x5 iterations here make at
     least as much progress as the reference's 4x10 while keeping the
-    sequential dependency chain — the TPU latency driver — half as deep.
+    sequential dependency chain — the latency driver — half as deep.
 
     Returns (R, t, inlier_mask [N], n_inliers).
     """

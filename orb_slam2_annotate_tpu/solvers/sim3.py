@@ -2,7 +2,7 @@
 
 Replaces Sim3Solver.cc: Horn's closed-form absolute orientation
 (quaternion eigendecomposition, ComputeCentroid:232 / ComputeSim3:240)
-inside a RANSAC loop (iterate:150).  TPU-first: all RANSAC hypotheses are
+inside a RANSAC loop (iterate:150).  Batch-first: all RANSAC hypotheses are
 solved at once — [S, 3] point triples -> vmapped 4x4 symmetric
 eigendecompositions -> [S, N] reprojection scoring in both directions.
 """

@@ -4,7 +4,7 @@ The reference's observability is chrono timers in the drivers
 (mono_tum.cc:78-121) and cout banners (SURVEY §5.1/§5.5).  This module
 provides the structured equivalent: named stage timers with streaming
 stats, a context manager that also emits jax.profiler TraceAnnotations
-(visible in TensorBoard/XProf captures on TPU), and a one-line report.
+(visible in jax.profiler traces), and a one-line report.
 """
 
 from __future__ import annotations

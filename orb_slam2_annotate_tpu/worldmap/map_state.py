@@ -14,7 +14,7 @@ but without pointers.
 
 Derived structure is recomputed on demand as dense linear algebra:
 * observation incidence O[K,P] (bool) from kf_obs by scatter
-* covisibility weights W = O @ O^T — one int matmul (MXU) instead of the
+* covisibility weights W = O @ O^T — one int matmul instead of the
   reference's per-keyframe counting loops (KeyFrame::UpdateConnections,
   KeyFrame.cc:311-403)
 * spanning tree parent = strongest earlier covisible (KeyFrame.cc:395-399)
@@ -124,15 +124,14 @@ def covisibility(m: MapState, O: jnp.ndarray | None = None) -> jnp.ndarray:
     """W[K,K] i32 shared-point counts (diagonal zeroed).
 
     The reference builds this per-KF with hash maps (KeyFrame.cc:311-403);
-    here it is one [K,P]x[P,K] int matmul on the MXU.
+    here it is one [K,P]x[P,K] int matmul.
     """
     if O is None:
         O = observation_matrix(m)
-    # int8 x int8 -> int32 on the MXU: exact integer counts at full
-    # matmul throughput.  The previous f32 route ran under the package's
-    # jax_default_matmul_precision="highest" (6-pass f32 emulation) —
-    # at grown tiers ([640, 82k] r5 long run) this matmul rides in
-    # several chain stages and dominated their capacity scaling.
+    # int8 x int8 -> int32: exact integer counts, and no f32 matmul
+    # under the package's jax_default_matmul_precision="highest".  At
+    # grown tiers this matmul rides in several chain stages.  Whether
+    # XLA:GPU lowers it to an int8 GEMM is reported by chip_smoke.py.
     Oi = O.astype(jnp.int8)
     W = jax.lax.dot_general(Oi, Oi, (((1,), (1,)), ((), ())),
                             preferred_element_type=jnp.int32)
@@ -143,8 +142,8 @@ def point_mask_rows(m: MapState, rows: jnp.ndarray,
                     rows_ok: jnp.ndarray) -> jnp.ndarray:
     """[P] bool: union of the map points observed by `rows` ([S] slots,
     gated by rows_ok).  An S*N scatter — O(S) of observation_matrix's
-    K*N scatter, which measured ~20 ms at the r5 bench tier (and grows
-    linearly with capacity); every per-keyframe chain stage that only
+    K*N scatter, which grows linearly with capacity; every per-keyframe
+    chain stage that only
     needs a window's point set uses this instead."""
     obs = m.kf_obs[rows]                                   # [S,N]
     ok = ((obs >= 0) & m.kf_feat_valid[rows]
@@ -352,9 +351,9 @@ def observation_table(m: MapState):
     to MAX_OBS (keyframe, feature) observation pairs.
 
     Built as one scatter into a [K,P] feature-index matrix followed by a
-    per-point top_k over the (short) K axis — the previous global
-    argsort over the flattened [K*N] kf_obs cost ~12 ms/call on TPU
-    (measured r5) and this table rides in the keyframe chain twice.
+    per-point top_k over the (short) K axis instead of a global
+    argsort over the flattened [K*N] kf_obs; this table rides in the
+    keyframe chain twice.
     Like the reference's per-KF observation map (MapPoint::mObservations,
     one feature per keyframe), duplicate same-KF features collapse to
     the lowest feature index.
@@ -449,8 +448,8 @@ def update_mappoint_geometry(m: MapState) -> MapState:
     those paths, LoopClosing.cc:795-851).  The full descriptor pass
     materializes a [P, MAX_OBS, MAX_OBS] Hamming cube plus a [P, MAX_OBS,
     DESC_WORDS] gather — at the grown capacity tiers (P >= 64k) that is
-    GBs of tile-padded HBM traffic and OOMs the step program (measured,
-    round 4 long-run); this pass keeps only [P, MAX_OBS] index tables
+    GBs of device-memory traffic and ran the step program out of memory
+    on a 1248-frame run; this pass keeps only [P, MAX_OBS] index tables
     and [P, MAX_OBS, 3] center gathers.
     """
     obs_kf, obs_ft, obs_cnt, obs_mask = observation_table(m)

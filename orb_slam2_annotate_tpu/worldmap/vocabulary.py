@@ -1,16 +1,17 @@
 """Binary visual vocabulary + keyframe database (place recognition).
 
 Replaces DBoW2 (Thirdparty/DBoW2: TemplatedVocabulary k=10, L=5 tree +
-inverted file KeyFrameDatabase.cc).  TPU-first redesign:
+inverted file KeyFrameDatabase.cc).  Array-first redesign:
 
 * The hierarchical tree exists to make word lookup O(k*L) on a CPU; on
-  TPU a FLAT vocabulary of W words is a single [N, W] popcount matrix
-  with an argmin — one fused VPU pass, no pointer chasing.  (SURVEY §7
+  an accelerator a FLAT vocabulary of W words is a single [N, W]
+  popcount matrix with an argmin — one fused pass, no pointer chasing.
+  (SURVEY §7
   "hard parts" already recommends exactly this.)
 * The inverted file exists to avoid scoring all keyframes; we instead
   keep the [K, W] TF-IDF matrix resident and score ALL keyframes against
-  a query with one matvec — K <= a few thousand keyframes makes this
-  microseconds on the MXU, and it is exact rather than candidate-pruned.
+  a query with one matvec — K <= a few thousand keyframes keeps this
+  small, and it is exact rather than candidate-pruned.
 * Vocabulary centroids default to seeded random binary codes (which give
   a valid LSH-style quantizer); train_vocabulary() runs batched binary
   k-means (majority-bit medians) for dataset-adapted vocabularies, the
@@ -111,7 +112,7 @@ def train_vocabulary(descs: np.ndarray, n_words: int = 4096, iters: int = 8,
                      seed: int = 0,
                      doc_ids: np.ndarray | None = None) -> Vocabulary:
     """Batched binary k-means (majority-bit medians) over [M, 8] u32
-    descriptors — the flat-TPU analog of DBoW2's hierarchical k-medians
+    descriptors — the flat analog of DBoW2's hierarchical k-medians
     training (TemplatedVocabulary::create) — plus corpus IDF weights
     when per-descriptor document (image) ids are supplied
     (TemplatedVocabulary::setNodeWeights semantics: idf = log(N/Ni))."""

@@ -1,7 +1,7 @@
 """Pipelined (async_depth > 0) tracking must match the synchronous path.
 
 The async mode defers keyframe/LOST policy by up to async_depth frames so
-the host never blocks on the device link (the TPU-native analog of the
+the host never blocks on a device read (the analog of the
 reference's tracking/LocalMapping thread decoupling, System.cc:91).  The
 trajectory it produces on a clean sequence must be as accurate as the
 synchronous mode's.

@@ -157,3 +157,52 @@ def test_free_sharded_matches_unsharded():
     assert n_sh == n_ref, f"sharded tracked {n_sh} vs {n_ref}"
     assert abs(ate_sh - ate_ref) < max(0.2 * ate_ref, 0.003), \
         f"sharded ATE {ate_sh:.4f} vs unsharded {ate_ref:.4f}"
+
+
+def _two_keyframe_map(K=8, P=512, N=64):
+    """Two keyframes observing the same N points (the multichip dryrun's
+    map), with a pose error for global BA to remove."""
+    from orb_slam2_annotate_tpu.ops.orb import DESC_WORDS
+    from orb_slam2_annotate_tpu.worldmap import map_state as ms
+
+    rng = np.random.RandomState(1)
+    Xw = rng.uniform([-2, -2, 4], [2, 2, 8], (N, 3)).astype(np.float32)
+    desc = rng.randint(0, 2**32, (N, DESC_WORDS), np.uint64).astype(np.uint32)
+    m = ms.empty_map(K, P, N)
+    for k in range(2):
+        tk = np.array([-0.1 * k, 0, 0], np.float32)
+        Xc = Xw + tk
+        uv = np.stack([200 * Xc[:, 0] / Xc[:, 2] + 64,
+                       200 * Xc[:, 1] / Xc[:, 2] + 48], 1).astype(np.float32)
+        m = ms.insert_keyframe(
+            m, jnp.asarray(k), jnp.eye(3), jnp.asarray(tk + 0.01 * k), k,
+            float(k), jnp.asarray(uv), jnp.full((N,), -1.0),
+            jnp.zeros((N,)), jnp.zeros((N,), jnp.int32), jnp.zeros((N,)),
+            jnp.asarray(desc), jnp.ones((N,), bool),
+            jnp.arange(N, dtype=jnp.int32))
+    return m._replace(mp_pos=m.mp_pos.at[:N].set(jnp.asarray(Xw)),
+                      mp_valid=m.mp_valid.at[:N].set(True))
+
+
+@pytest.mark.parametrize("how", ["default", "use_dist_gba", "mesh"])
+def test_global_ba_shards_only_on_request(how):
+    """With 8 devices visible, loop closing's global BA stays on one
+    device unless the caller asks for a mesh (System/FreeRunner pass
+    their shard_points mesh) or sets use_dist_gba."""
+    from orb_slam2_annotate_tpu.parallel.mesh import map_mesh
+    from orb_slam2_annotate_tpu.pipeline.loop_closing import (
+        LoopCloser, LoopCloserConfig)
+
+    assert len(jax.devices()) == 8
+    cam = CameraModel.create(fx=200.0, fy=200.0, cx=64.0, cy=48.0,
+                             width=128, height=96)
+    m = _two_keyframe_map()
+    lc = LoopCloser(cam, m.K,
+                    LoopCloserConfig(use_dist_gba=how == "use_dist_gba"),
+                    mesh=map_mesh() if how == "mesh" else None)
+    lc._dispatch_global_ba(m, anchor=0)
+    g = lc._gba_pending
+    n_dev = len(g["R"].sharding.device_set)
+    assert n_dev == (1 if how == "default" else 8)
+    assert np.all(np.isfinite(np.asarray(g["X"])))
+    assert np.all(np.isfinite(np.asarray(g["t"])))

@@ -1,6 +1,6 @@
 """End-to-end monocular SLAM on a synthetic sequence with exact GT.
 
-The TPU analog of the reference's dataset-driven integration runs
+The analog of the reference's dataset-driven integration runs
 (SURVEY §4): run the full pipeline (init -> tracking -> keyframes ->
 triangulation -> local BA) and assert trajectory ATE after Sim3
 alignment (mono scale is arbitrary).

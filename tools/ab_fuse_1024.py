@@ -7,7 +7,7 @@ Runs the free path (the benchmarked production path) with
 enable_fuse off/on over multiple seeds on PlaneScene (mono + RGB-D) and
 reports mean ATE, plus StructuredScene tracked fraction at 1024f.
 
-    python tools/ab_fuse_1024.py            # TPU
+    python tools/ab_fuse_1024.py            # on the GPU
 """
 
 from __future__ import annotations

@@ -8,7 +8,7 @@ README.md:130) the 112-frame headline bench cannot see.
 Importable (`run_long()` — bench.py embeds the result in its JSON line)
 or runnable standalone:
 
-    python tools/bench_long.py                 # TPU if available
+    python tools/bench_long.py                 # on the GPU
     JAX_PLATFORMS=cpu python tools/bench_long.py --frames 400 --qvga
 """
 

@@ -6,8 +6,8 @@ throughput + parallel efficiency (BASELINE.md asks >= 70% at 2+ hosts).
 On this environment only virtual CPU devices are available
 (XLA_FLAGS=--xla_force_host_platform_device_count=8 on a 2-core host),
 so the numbers measure the sharding overhead / collective correctness,
-NOT real ICI scaling — virtual devices share the same cores.  Run on a
-real slice for meaningful efficiency.
+NOT real interconnect scaling — virtual devices share the same cores.
+Run on several GPUs for meaningful efficiency.
 
 Usage:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
@@ -179,7 +179,7 @@ def main():
                     "devices (XLA host-platform virtualization)",
         "caveat": "virtual devices SHARE the host's 2 physical cores: "
                   "these numbers measure sharding overhead and collective "
-                  "correctness, NOT real ICI scaling; compute-bound "
+                  "correctness, NOT real interconnect scaling; compute-bound "
                   "speedup is impossible here by construction.  Real "
                   "efficiency needs a multi-chip slice (unavailable in "
                   "this environment).",

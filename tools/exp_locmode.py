@@ -4,22 +4,23 @@ bench steady-state segment once normally and once in localization mode
 loc_only operand) — the difference is the keyframe chain's amortized
 share, measured inside the real fused program rather than as standalone
 stage dispatches (which XLA cannot fuse/CSE the way the step program
-does)."""
+does).
+
+Usage: python tools/exp_locmode.py"""
 
 import os
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-sys.path.insert(0, "/root/repo")
 
 
 def main():
-    from bench import SensorBench, sanitize_session
+    from bench import SensorBench, require_gpu
     import jax.numpy as jnp
     import numpy as np
 
-    print("rtt", sanitize_session(), file=sys.stderr)
+    require_gpu()
     b = SensorBench("mono")
     b.prepare()
     fps_a = b.run_timed()

@@ -1,4 +1,4 @@
-"""Micro-profile of local BA internals on the real TPU: which part of an
+"""Micro-profile of local BA internals on the accelerator: which part of an
 LM iteration dominates — linearization (grid gathers + einsums), the
 Schur reduction, or the dense [6C,6C] solve — and what the cheaper
 structure ops (observation_table, covisibility) cost.

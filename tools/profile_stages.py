@@ -1,6 +1,7 @@
-"""Stage-level micro-profiling on the real TPU: which device programs
-inside track_frame and the keyframe chain dominate the 28 ms / 190 ms
-costs measured by tools/profile_tpu.py.
+"""Stage-level micro-profiling on the accelerator: which device programs
+inside track_frame and the keyframe chain dominate their cost.
+
+Usage: python tools/profile_stages.py
 """
 
 import os
